@@ -1,17 +1,18 @@
 #!/usr/bin/env python
 """Flagship CG-policy study: preconditioner x forcing x warm-start.
 
-Measures, on the real chip at the flagship scale (10k poses / 1M landmarks /
-12M obs unless resized by env), for each CG configuration:
+Measures on one GPU, at the flagship scale (10k poses / 1M landmarks / 12M
+obs unless resized by env), for each CG configuration:
   - wall time of a fixed-LM-iteration solve (thresholds 0) and the resulting
     LM iters/s and obs*iter/s;
   - final RMSE (px) after those LM iterations;
   - per-LM-iteration inner-CG iteration counts (INFO_CG_ITERS telemetry);
   - CG-iterations-to-tolerance (fixed relative tolerance, high cap): the
-    preconditioner-quality measurement of VERDICT round-2 task 1.
+    preconditioner-quality measurement.
 
-Writes benchmarks/cg_study.json. Compare against the round-2 baseline
-(block-Jacobi on A, fixed 25 CG iterations: 17.1 LM iters/s, RMSE 0.0038).
+Prints one JSON line per configuration, each naming the device:
+
+    python benchmarks/cg_study.py
 """
 
 import json
@@ -25,23 +26,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-
-from bundle_adjustment_solver_tpu.options import (
+from bench import _device_fields, solve_device
+from bundle_adjustment_solver.options import (
     ConvergenceHandle,
     IterationHandle,
     Options,
     SolverType,
 )
-from bundle_adjustment_solver_tpu.solvers import full_ba_pm
-from bundle_adjustment_solver_tpu.utils.synthetic import corridor_problem_on_device
+from bundle_adjustment_solver.summary import INFO_CG_ITERS
+from bundle_adjustment_solver.utils.device import (
+    enable_compile_cache,
+    require_gpu,
+)
+from bundle_adjustment_solver.utils.synthetic import corridor_problem_on_device
 
 NUM_POSES = int(os.environ.get("BENCH_POSES", 10_000))
 NUM_POINTS = int(os.environ.get("BENCH_POINTS", 1_000_000))
 LM_ITERS = int(os.environ.get("BENCH_ITERS", 50))
-
-
-def _fetch(x):
-    return float(np.asarray(x))
 
 
 def build():
@@ -51,41 +52,32 @@ def build():
     return problem, shape, pm, pshape
 
 
-def run_config(problem, shape, pm, pshape, name, opts, lm_iters):
-    def run():
-        out = full_ba_pm._solve_pm_jax(
-            pm, pshape, problem.rig, problem.R_cw, problem.t_cw,
-            problem.opt_pose_idx, opts, interpret=False,
-        )
-        return out, _fetch(out[7])
-
-    run()  # compile + warm
+def run_config(problem, shape, pm, pshape, name, opts, lm_iters, device):
+    solve_device("pm", problem, shape, pm, pshape, opts)  # compile + warm
     t0 = time.perf_counter()
-    out, _ = run()
+    info, rmse, _ = solve_device("pm", problem, shape, pm, pshape, opts)
     elapsed = time.perf_counter() - t0
-    rmse = _fetch(out[8])
-    info = np.asarray(out[5])
-    from bundle_adjustment_solver_tpu.summary import INFO_CG_ITERS, INFO_COST
-
-    cg = info[:lm_iters, INFO_CG_ITERS].astype(int).tolist()
+    cg = np.asarray(info)[:lm_iters, INFO_CG_ITERS].astype(int).tolist()
     rec = dict(
         name=name,
         lm_iters=lm_iters,
-        wall_s=round(elapsed, 3),
-        lm_iters_per_s=round(lm_iters / elapsed, 3),
-        obs_iters_per_s=round(shape.num_observations * lm_iters / elapsed, 0),
-        final_rmse_px=rmse,
+        wall_s=elapsed,
+        lm_iters_per_s=lm_iters / elapsed,
+        obs_iters_per_s=shape.num_observations * lm_iters / elapsed,
+        final_rmse_px=float(rmse),
         cg_iters=cg,
         cg_total=int(sum(cg)),
+        **device,
     )
-    print(json.dumps(rec))
+    print(json.dumps(rec), flush=True)
     return rec
 
 
 def main():
-    print("devices:", jax.devices())
+    require_gpu()
+    enable_compile_cache()
+    device = _device_fields()
     problem, shape, pm, pshape = build()
-    print(f"problem: {shape.num_observations} obs")
 
     def mkopts(**kw):
         return Options(
@@ -96,48 +88,41 @@ def main():
             **kw,
         )
 
-    results = []
-    # Round-2 baseline: block-Jacobi on A, fixed 25 CG.
-    results.append(run_config(
-        problem, shape, pm, pshape, "r2_jacobi_fixed25",
+    # Block-Jacobi on A with a fixed 25-iteration CG budget.
+    run_config(
+        problem, shape, pm, pshape, "jacobi_fixed25",
         mkopts(cg_max_iterations=25, cg_tolerance=0.0, cg_precond="jacobi"),
-        LM_ITERS,
-    ))
+        LM_ITERS, device,
+    )
     # Schur-Jacobi, same fixed budget (isolates preconditioner cost/benefit).
-    results.append(run_config(
+    run_config(
         problem, shape, pm, pshape, "schur_fixed25",
         mkopts(cg_max_iterations=25, cg_tolerance=0.0,
                cg_precond="schur_jacobi"),
-        LM_ITERS,
-    ))
+        LM_ITERS, device,
+    )
     # CG-to-tolerance: preconditioner quality in iteration counts.
     for pname in ("jacobi", "schur_jacobi"):
-        results.append(run_config(
+        run_config(
             problem, shape, pm, pshape, f"{pname}_tol1e-4_cap100",
             mkopts(cg_max_iterations=100, cg_tolerance=1e-8,
                    cg_precond=pname),  # tol on ||r||^2: 1e-8 => ||r||/||rhs||=1e-4
-            LM_ITERS,
-        ))
+            LM_ITERS, device,
+        )
     # Adaptive forcing (Eisenstat-Walker), with and without warm start.
-    results.append(run_config(
+    run_config(
         problem, shape, pm, pshape, "schur_ew_cap25",
         mkopts(cg_max_iterations=25, cg_tolerance=0.0,
                cg_precond="schur_jacobi", cg_forcing="ew"),
-        LM_ITERS,
-    ))
-    results.append(run_config(
+        LM_ITERS, device,
+    )
+    run_config(
         problem, shape, pm, pshape, "schur_ew_warm_cap25",
         mkopts(cg_max_iterations=25, cg_tolerance=0.0,
                cg_precond="schur_jacobi", cg_forcing="ew",
                cg_warm_start=True),
-        LM_ITERS,
-    ))
-
-    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "cg_study.json")
-    with open(out_path, "w") as f:
-        json.dump(results, f, indent=1)
-    print("wrote", out_path)
+        LM_ITERS, device,
+    )
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 
 Complements bench.py (fixed-work throughput) with the number users feel:
 seconds from problem-on-device to a converged solution, per engine and
-problem size, on the real chip.
+problem size, on one GPU (it refuses to run without one).
 
     python benchmarks/convergence.py            # both engines, two sizes
     python benchmarks/convergence.py --quick    # small size only
@@ -27,17 +27,26 @@ def main() -> int:
     import jax
     import numpy as np
 
-    from bundle_adjustment_solver_tpu.models.problem import (
+    from bundle_adjustment_solver.utils.device import (
+        enable_compile_cache,
+        gpu_name_and_power_limit,
+        require_gpu,
+    )
+
+    require_gpu()
+    enable_compile_cache()
+
+    from bundle_adjustment_solver.models.problem import (
         finalized_from_arrays,
     )
-    from bundle_adjustment_solver_tpu.options import (
+    from bundle_adjustment_solver.options import (
         ConvergenceHandle,
         IterationHandle,
         Options,
         SolverType,
     )
-    from bundle_adjustment_solver_tpu.solvers import full_ba, full_ba_pm
-    from bundle_adjustment_solver_tpu.utils.synthetic import (
+    from bundle_adjustment_solver.solvers import full_ba, full_ba_pm
+    from bundle_adjustment_solver.utils.synthetic import (
         corridor_ba_problem,
     )
 
@@ -68,7 +77,7 @@ def main() -> int:
         )
         problem = jax.device_put(problem, dev)
 
-        # Point-major Pallas engine.
+        # Point-major engine.
         t0 = time.perf_counter()
         pm, pshape = full_ba_pm.pm_from_finalized(problem, shape, host=host)
         layout_s = time.perf_counter() - t0
@@ -77,7 +86,7 @@ def main() -> int:
         def run_pm():
             out = full_ba_pm._solve_pm_jax(
                 pm, pshape, problem.rig, problem.R_cw, problem.t_cw,
-                problem.opt_pose_idx, opts, interpret=False,
+                problem.opt_pose_idx, opts,
             )
             return float(out[7]), float(out[8]), int(out[4])
 
@@ -86,32 +95,32 @@ def main() -> int:
         cost, rmse, iters = run_pm()
         pm_s = time.perf_counter() - t0
         rows.append(dict(
-            engine="pallas-pm", poses=n_poses, points=n_points,
+            engine="point-major", poses=n_poses, points=n_points,
             obs=shape.num_observations, solve_s=round(pm_s, 3),
             layout_s=round(layout_s, 2), lm_iters=iters,
             rmse_px=round(rmse, 6),
         ))
         print(rows[-1])
 
-        # Portable XLA engine (skip at the large size: ~25 min per solve).
-        if n_poses <= 2000:
-            def run_cg():
-                state = full_ba._solve_jax(problem, shape, opts, "cg")
-                return (float(state.final_cost), float(state.final_rmse_px),
-                        int(state.num_iterations))
+        # Observation-table engine.
+        def run_cg():
+            state = full_ba._solve_jax(problem, shape, opts, "cg")
+            return (float(state.final_cost), float(state.final_rmse_px),
+                    int(state.num_iterations))
 
-            run_cg()
-            t0 = time.perf_counter()
-            cost, rmse, iters = run_cg()
-            cg_s = time.perf_counter() - t0
-            rows.append(dict(
-                engine="xla-obs-table", poses=n_poses, points=n_points,
-                obs=shape.num_observations, solve_s=round(cg_s, 3),
-                layout_s=0.0, lm_iters=iters, rmse_px=round(rmse, 6),
-            ))
-            print(rows[-1])
+        run_cg()
+        t0 = time.perf_counter()
+        cost, rmse, iters = run_cg()
+        cg_s = time.perf_counter() - t0
+        rows.append(dict(
+            engine="obs-table", poses=n_poses, points=n_points,
+            obs=shape.num_observations, solve_s=round(cg_s, 3),
+            layout_s=0.0, lm_iters=iters, rmse_px=round(rmse, 6),
+        ))
+        print(rows[-1])
 
-    print(json.dumps({"time_to_solution": rows}))
+    print(json.dumps({"time_to_solution": rows,
+                      "card": gpu_name_and_power_limit()}))
     return 0
 
 

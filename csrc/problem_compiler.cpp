@@ -1,7 +1,7 @@
-// Native problem compiler for bundle_adjustment_solver_tpu.
+// Native problem compiler for bundle_adjustment_solver.
 //
 // Host-side runtime work that sits between user registration and the static
-// device arrays the TPU solvers consume. The reference does the equivalent
+// device arrays the solvers consume. The reference does the equivalent
 // in C++ with pointer-keyed hash maps and serial passes
 // (FinalizeParameters / SetProblemSize / connectivity maps,
 // core/full_bundle_adjustment_solver.cpp:182-341, 669-700); at millions of

@@ -6,18 +6,17 @@ The reference solves one frame per call
 (core/pose_only_bundle_adjustment_solver.h:36-49, driven one at a time by
 test/test_6dof_stereo_poseonly_ba.cpp); a fleet-scale tracking service has
 thousands of independent frames in flight. This example drives the
-frames-along-lanes fused batched solver (ops/pallas/pose_only_batched.py)
-in its serving configuration:
+batched solver (solvers/pose_only.solve_stereo_6dof_batched) in its serving
+configuration:
 
-  - `Options.pallas='auto'`     -> fused kernel on TPU, XLA elsewhere;
   - `Options.record_history=False` -> the reference's summary==nullptr
     mode; history buffers collapse to one row (the batched fast path);
   - one launch solves every frame in lockstep, each frame freezing at its
     own convergence point.
 
-Run on CPU:  JAX_PLATFORMS=cpu PYTHONPATH= python examples/batched_pose_tracking.py
-Run on TPU:  python examples/batched_pose_tracking.py   (2048 frames,
-             ~3k lockstep GN iterations/s on one v5e chip)
+Run on CPU:  JAX_PLATFORMS=cpu python examples/batched_pose_tracking.py
+             (64 frames x 128 points)
+Run on GPU:  python examples/batched_pose_tracking.py   (2048 x 256)
 """
 
 import pathlib
@@ -32,19 +31,20 @@ def main() -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from bundle_adjustment_solver_tpu.options import (
+    from bundle_adjustment_solver.options import (
         ConvergenceHandle,
         IterationHandle,
         Options,
         OutlierHandle,
     )
-    from bundle_adjustment_solver_tpu.solvers import pose_only
-    from bundle_adjustment_solver_tpu.utils.synthetic import (
+    from bundle_adjustment_solver.solvers import pose_only
+    from bundle_adjustment_solver.utils.synthetic import (
         batched_stereo_pose_only_problem,
     )
 
-    on_tpu = jax.default_backend() == "tpu"
-    B, P = (2048, 256) if on_tpu else (64, 128)
+    from bundle_adjustment_solver.utils.device import on_gpu
+
+    B, P = (2048, 256) if on_gpu() else (64, 128)
     prob = batched_stereo_pose_only_problem(
         num_frames=B, points_per_frame=P, seed=42,
         pixel_noise=0.3, drop_right_frac=0.1,
@@ -55,7 +55,6 @@ def main() -> int:
         outlier_handle=OutlierHandle(1.0, 2.5),
         iteration_handle=IterationHandle(50),
         record_history=False,  # serving mode: no per-iteration telemetry
-        pallas="auto" if on_tpu else "interpret",
     )
 
     args = (
@@ -71,9 +70,8 @@ def main() -> int:
 
     # --compact: straggler-compaction driver (solve_*_batched_compacting)
     # -- retires converged frames between 8-iteration segments instead of
-    # paying full lockstep passes until the LAST frame converges (~95%
-    # wasted lane-passes on mixed batches, benchmarks/straggler_study.json;
-    # pays off on directly-attached TPUs where dispatch is ~0.1 ms).
+    # paying full lockstep passes until the LAST frame converges (most
+    # frame-passes are wasted on mixed batches, benchmarks/straggler_study.py).
     compact = "--compact" in sys.argv
 
     def solve():
@@ -83,8 +81,7 @@ def main() -> int:
 
     res = solve()  # compile
     t0 = time.perf_counter()
-    res = solve()
-    np.asarray(res.pose[0, 0, 0])  # sync
+    res = jax.block_until_ready(solve())
     dt = time.perf_counter() - t0
 
     poses = np.asarray(res.pose)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""End-to-end visual-SLAM-style pipeline on the TPU bundle-adjustment engine.
+"""End-to-end visual-SLAM-style pipeline on the bundle-adjustment engine.
 
 A compact tour of everything a user of the reference C++ solver
 (ChanghyeonKim93/bundle_adjustment_solver) would reach for, in one runnable
@@ -12,12 +12,12 @@ script:
      batched variant the reference lacks);
   4. refine everything with full bundle adjustment through the registration
      API (reference README walkthrough), printing the BriefReport table;
-  5. large problems: bulk construction + the point-major Pallas engine, and
+  5. large problems: bulk construction + the point-major engine, and
      (on a multi-device mesh) the sharded solver.
 
 Run on CPU (deterministic):
     JAX_PLATFORMS=cpu PYTHONPATH= python examples/visual_slam_pipeline.py
-or on the TPU: python examples/visual_slam_pipeline.py
+or on a GPU: python examples/visual_slam_pipeline.py
 """
 
 import pathlib
@@ -27,17 +27,17 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-import bundle_adjustment_solver_tpu as ba
-from bundle_adjustment_solver_tpu.ops.triangulation import triangulate_stereo
-from bundle_adjustment_solver_tpu.options import (
+import bundle_adjustment_solver as ba
+from bundle_adjustment_solver.ops.triangulation import triangulate_stereo
+from bundle_adjustment_solver.options import (
     ConvergenceHandle,
     IterationHandle,
     Options,
     OutlierHandle,
     SolverType,
 )
-from bundle_adjustment_solver_tpu.solvers import pose_only
-from bundle_adjustment_solver_tpu.utils.synthetic import (
+from bundle_adjustment_solver.solvers import pose_only
+from bundle_adjustment_solver.utils.synthetic import (
     mono_pose_only_problem,
     stereo_ba_problem,
 )
@@ -117,17 +117,17 @@ def main() -> int:
     print(f"full BA: rmse {summary.final_reprojection_rmse_px:.5f} px, "
           f"max pose error {pose_err:.4f} m")
 
-    # -- 5. large problems: direct arrays -> point-major Pallas engine ------
+    # -- 5. large problems: direct arrays -> point-major engine -------------
     # The serving path: skip the sorted observation table entirely
     # (pm_problem_from_arrays) and keep the layout/pm tables resident for
     # repeated solves. bench.py runs this at 10k poses / 1M landmarks.
     import jax
 
-    from bundle_adjustment_solver_tpu.models.problem import (
+    from bundle_adjustment_solver.models.problem import (
         finalized_from_arrays,
     )
-    from bundle_adjustment_solver_tpu.solvers import full_ba_pm
-    from bundle_adjustment_solver_tpu.utils.synthetic import (
+    from bundle_adjustment_solver.solvers import full_ba_pm
+    from bundle_adjustment_solver.utils.synthetic import (
         corridor_ba_problem,
     )
 
@@ -160,7 +160,7 @@ def main() -> int:
 
     # Warm-topology re-solve (every SLAM frame): same observation graph,
     # new measurements -- PMLayoutCache.refill re-gathers just the value
-    # planes (no host fill, no re-sort; see PERF.md round 4).
+    # planes (no host fill, no re-sort).
     rng2 = np.random.default_rng(11)
     pix_next = big.obs_pixel + rng2.normal(
         scale=0.2, size=big.obs_pixel.shape
@@ -179,7 +179,7 @@ def main() -> int:
     # Multi-device mesh (pose-sharded distributed engine): runs on however
     # many devices are visible (8 virtual CPU devices under the test rig).
     if len(jax.devices()) > 1:
-        from bundle_adjustment_solver_tpu.parallel.sharded_pm import (
+        from bundle_adjustment_solver.parallel.sharded_pm import (
             solve_sharded_pm,
         )
 

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bundle_adjustment_solver_tpu.options import (
+from bundle_adjustment_solver.options import (
     ConvergenceHandle,
     IterationHandle,
     Options,
@@ -17,7 +17,7 @@ class TestTriangulation:
     def test_stereo_roundtrip(self, rng):
         """Project random points through a rectified stereo pair, triangulate
         back (test_projection_of_3d_point.cc parity, but asserted)."""
-        from bundle_adjustment_solver_tpu.ops.triangulation import (
+        from bundle_adjustment_solver.ops.triangulation import (
             triangulate_stereo,
         )
 
@@ -45,8 +45,8 @@ class TestTriangulation:
         np.testing.assert_allclose(np.asarray(rec), pts, rtol=1e-3, atol=1e-3)
 
     def test_two_view_midpoint(self, rng):
-        from bundle_adjustment_solver_tpu.ops import lie
-        from bundle_adjustment_solver_tpu.ops.triangulation import (
+        from bundle_adjustment_solver.ops import lie
+        from bundle_adjustment_solver.ops.triangulation import (
             triangulate_two_view,
         )
 
@@ -73,11 +73,11 @@ class TestTriangulation:
 
 class TestCheckpoint:
     def test_save_load_resume(self, tmp_path, rng):
-        from bundle_adjustment_solver_tpu.models.problem import (
+        from bundle_adjustment_solver.models.problem import (
             finalized_from_arrays,
         )
-        from bundle_adjustment_solver_tpu.utils import checkpoint
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.utils import checkpoint
+        from bundle_adjustment_solver.utils.synthetic import (
             corridor_ba_problem,
         )
 
@@ -108,7 +108,7 @@ class TestCheckpoint:
 
 class TestFactoryAndAliases:
     def test_factory_backends(self):
-        from bundle_adjustment_solver_tpu.interfaces import (
+        from bundle_adjustment_solver.interfaces import (
             BundleAdjustmentSolverInterface,
             create_solver,
         )
@@ -123,9 +123,9 @@ class TestFactoryAndAliases:
     def test_refactor_register_api_solves(self):
         """The Register* surface drives a full solve end-to-end
         (test_ba_refactor.cpp parity)."""
-        from bundle_adjustment_solver_tpu.interfaces import create_solver
-        from bundle_adjustment_solver_tpu.options import SolverType
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.interfaces import create_solver
+        from bundle_adjustment_solver.options import SolverType
+        from bundle_adjustment_solver.utils.synthetic import (
             stereo_ba_problem,
         )
 
@@ -155,8 +155,8 @@ class TestFactoryAndAliases:
         assert summary.final_reprojection_rmse_px < 0.05
 
     def test_gradient_descent_alias(self):
-        from bundle_adjustment_solver_tpu.interfaces import create_solver
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.interfaces import create_solver
+        from bundle_adjustment_solver.utils.synthetic import (
             stereo_ba_problem,
         )
 
@@ -184,11 +184,11 @@ class TestFactoryAndAliases:
 
 class TestVisualization:
     def test_reprojection_replay_writes_pngs(self, tmp_path):
-        from bundle_adjustment_solver_tpu.solvers import pose_only
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.solvers import pose_only
+        from bundle_adjustment_solver.utils.synthetic import (
             mono_pose_only_problem,
         )
-        from bundle_adjustment_solver_tpu.utils.visualization import (
+        from bundle_adjustment_solver.utils.visualization import (
             save_reprojection_replay,
             save_trajectory_plot,
         )
@@ -229,14 +229,14 @@ class TestVisualization:
 
 class TestShardedBatchedPoseOnly:
     def test_sharded_matches_unsharded(self):
-        from bundle_adjustment_solver_tpu.parallel.batched_pose_only import (
+        from bundle_adjustment_solver.parallel.batched_pose_only import (
             solve_monocular_6dof_sharded,
         )
-        from bundle_adjustment_solver_tpu.parallel.mesh import data_mesh
-        from bundle_adjustment_solver_tpu.solvers.pose_only import (
+        from bundle_adjustment_solver.parallel.mesh import data_mesh
+        from bundle_adjustment_solver.solvers.pose_only import (
             solve_monocular_6dof_batched,
         )
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.utils.synthetic import (
             mono_pose_only_problem,
         )
 
@@ -267,40 +267,41 @@ class TestShardedBatchedPoseOnly:
         )
 
     def test_sharded_fused_kernel_matches_unsharded(self):
-        """The fused frames-along-lanes kernel under shard_map (interpret
-        mode): each device runs the Pallas solver on its local frames."""
-        from bundle_adjustment_solver_tpu.parallel.batched_pose_only import (
-            solve_monocular_6dof_sharded,
+        """Stereo frames sharded over the mesh: each device runs the
+        vmapped solver on its local frames, with per-frame iteration counts
+        identical to the unsharded batched solve."""
+        from bundle_adjustment_solver.parallel.batched_pose_only import (
+            solve_stereo_6dof_sharded,
         )
-        from bundle_adjustment_solver_tpu.parallel.mesh import data_mesh
-        from bundle_adjustment_solver_tpu.solvers.pose_only import (
-            solve_monocular_6dof_batched,
+        from bundle_adjustment_solver.parallel.mesh import data_mesh
+        from bundle_adjustment_solver.solvers.pose_only import (
+            solve_stereo_6dof_batched,
         )
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
-            mono_pose_only_problem,
+        from bundle_adjustment_solver.utils.synthetic import (
+            batched_stereo_pose_only_problem,
         )
 
         B, P = 8, 200
-        probs = [mono_pose_only_problem(num_points=P, seed=s) for s in range(B)]
-        points = jnp.asarray(np.stack([p.points for p in probs]), jnp.float32)
-        pixels = jnp.asarray(np.stack([p.pixels for p in probs]), jnp.float32)
-        valid = jnp.ones((B, P), bool)
-        intr = jnp.asarray(probs[0].intrinsics, jnp.float32)
-        poses0 = jnp.asarray(
-            np.stack([p.pose_initial for p in probs]), jnp.float32
+        prob = batched_stereo_pose_only_problem(
+            num_frames=B, points_per_frame=P, seed=3, drop_right_frac=0.1
+        )
+        args = (
+            jnp.asarray(prob.points, jnp.float32),
+            jnp.asarray(prob.pixels_left, jnp.float32),
+            jnp.asarray(prob.pixels_right, jnp.float32),
+            jnp.ones((B, P), bool),
+            jnp.asarray(prob.intrinsics, jnp.float32),
+            jnp.asarray(prob.intrinsics, jnp.float32),
+            jnp.asarray(prob.pose_left_to_right, jnp.float32),
+            jnp.asarray(prob.poses_initial, jnp.float32),
         )
         opts = Options(
             convergence_handle=ConvergenceHandle(1e-6, 1e-6),
             outlier_handle=OutlierHandle(1.0, 2.5),
             iteration_handle=IterationHandle(40),
-        ).replace(pallas="interpret")
-        mesh = data_mesh(8)
-        sharded = solve_monocular_6dof_sharded(
-            points, pixels, valid, intr, poses0, opts, mesh=mesh
         )
-        plain = solve_monocular_6dof_batched(
-            points, pixels, valid, intr, poses0, opts
-        )
+        sharded = solve_stereo_6dof_sharded(*args, opts, mesh=data_mesh(8))
+        plain = solve_stereo_6dof_batched(*args, opts)
         assert bool(sharded.success.all())
         np.testing.assert_allclose(
             np.asarray(sharded.pose), np.asarray(plain.pose), atol=1e-5
@@ -315,7 +316,7 @@ class TestCorridorGenerator:
     def test_projection_chunking_is_value_invariant(self, monkeypatch):
         """The chunked projection pass (memory-bounding at 24M obs) must be
         bit-identical to the one-shot pass at any chunk size."""
-        from bundle_adjustment_solver_tpu.utils import synthetic
+        from bundle_adjustment_solver.utils import synthetic
 
         one_shot = synthetic.corridor_ba_problem(50, 2000, window=4, seed=9)
         monkeypatch.setattr(synthetic, "_PROJECTION_CHUNK", 1000)

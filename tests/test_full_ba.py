@@ -11,15 +11,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bundle_adjustment_solver_tpu.models.problem import FullBundleAdjustmentSolver
-from bundle_adjustment_solver_tpu.options import (
+from bundle_adjustment_solver.models.problem import FullBundleAdjustmentSolver
+from bundle_adjustment_solver.options import (
     ConvergenceHandle,
     IterationHandle,
     Options,
     OutlierHandle,
     SolverType,
 )
-from bundle_adjustment_solver_tpu.utils.synthetic import stereo_ba_problem
+from bundle_adjustment_solver.utils.synthetic import stereo_ba_problem
 
 
 def build_solver(prob) -> FullBundleAdjustmentSolver:
@@ -140,8 +140,8 @@ class TestSchurIdentity:
     algebraically consistent with the full normal equations."""
 
     def test_schur_identity(self):
-        from bundle_adjustment_solver_tpu.ops import hessian as Hs
-        from bundle_adjustment_solver_tpu.solvers import full_ba
+        from bundle_adjustment_solver.ops import hessian as Hs
+        from bundle_adjustment_solver.solvers import full_ba
 
         prob = stereo_ba_problem(num_poses=8, num_fixed_poses=2, seed=3)
         solver = build_solver(prob)
@@ -150,7 +150,7 @@ class TestSchurIdentity:
         X_ref, X_cam, r, w, (fx, fy, R_jw, R_cam) = full_ba._residuals(
             problem, problem.R_cw, problem.t_cw, problem.points, huber
         )
-        from bundle_adjustment_solver_tpu.ops.projection import full_ba_jacobians
+        from bundle_adjustment_solver.ops.projection import full_ba_jacobians
 
         Q, Rj = full_ba_jacobians(R_jw, X_ref, X_cam, fx, fy, R_cam)
         lam = jnp.asarray(0.1, problem.points.dtype)
@@ -202,7 +202,7 @@ class TestSchurIdentity:
 
 class TestBuilderValidation:
     def test_unknown_ids_raise(self):
-        from bundle_adjustment_solver_tpu.models.camera import Camera
+        from bundle_adjustment_solver.models.camera import Camera
 
         solver = FullBundleAdjustmentSolver()
         solver.add_camera(0, Camera(100.0, 100.0, 50.0, 50.0))
@@ -220,7 +220,7 @@ class TestBuilderValidation:
             solver.make_point_fixed(9)
 
     def test_mutation_after_finalize_rejected(self):
-        from bundle_adjustment_solver_tpu.models.camera import Camera
+        from bundle_adjustment_solver.models.camera import Camera
 
         solver = FullBundleAdjustmentSolver()
         solver.add_camera(0, Camera(100.0, 100.0, 50.0, 50.0))
@@ -284,10 +284,10 @@ class TestCgDtypeAndDeviceModeGuards:
         previously returned f32 eta against an f64 eta_prev carry and the
         while_loop carry check raised at trace time (both 'fixed' and 'ew'
         forcing ride the same carry)."""
-        from bundle_adjustment_solver_tpu.models.problem import (
+        from bundle_adjustment_solver.models.problem import (
             finalized_from_arrays,
         )
-        from bundle_adjustment_solver_tpu.solvers import full_ba
+        from bundle_adjustment_solver.solvers import full_ba
 
         prob = stereo_ba_problem(num_poses=5, num_fixed_poses=1, seed=3)
         fixed = np.zeros(prob.poses_initial.shape[0], bool)
@@ -307,7 +307,7 @@ class TestCgDtypeAndDeviceModeGuards:
 
     def test_device_mode_refused_off_pm_engine(self):
         """time_iterations='device' anchors on the point-major assembly
-        kernel's trace events; the obs-table route must refuse it instead
+        scope's trace events; the obs-table route must refuse it instead
         of silently reporting chunked dispatch wall times."""
         prob = stereo_ba_problem(num_poses=5, num_fixed_poses=1, seed=3)
         solver = build_solver(prob)
@@ -327,8 +327,8 @@ class TestCgDtypeAndDeviceModeGuards:
             lm_options(max_iter=3, time_iterations=good)
 
     def test_device_mode_refused_pose_only(self):
-        from bundle_adjustment_solver_tpu.solvers import pose_only
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.solvers import pose_only
+        from bundle_adjustment_solver.utils.synthetic import (
             mono_pose_only_problem,
         )
 
@@ -341,21 +341,17 @@ class TestCgDtypeAndDeviceModeGuards:
 
 
 class TestDefaultOptionsAreTheStudiedConfig:
-    """Round-5 guard (VERDICT r4 #3): `Options()` must hand a new user the
-    configuration the repo's own study proved fastest at equal convergence
-    (benchmarks/cg_study.json: Eisenstat-Walker forcing = 3.6x end-to-end,
-    Schur-Jacobi preconditioning = neutral-to-free) -- the same configuration
-    bench.py runs. 'fixed' stays available as the deterministic-budget escape
-    hatch."""
+    """`Options()` must hand a new user the configuration bench.py runs
+    (Eisenstat-Walker forcing, block-Jacobi preconditioning; compared in
+    benchmarks/cg_study.py). 'fixed' stays available as the
+    deterministic-budget mode."""
 
     def test_defaults_match_bench_configuration(self):
         opts = Options()
         assert opts.cg_forcing == "ew"
-        # 'jacobi', not 'schur_jacobi': iteration-neutral on the flagship
-        # AND 0.93 ms/LM-iter cheaper to assemble (the Schur panel emission
-        # is not free at flagship scale -- assemble_cost_roofline.json).
+        # 'jacobi', not 'schur_jacobi': iteration-neutral on the flagship,
+        # and it scatters 21 fewer pose-system columns per LM iteration.
         assert opts.cg_precond == "jacobi"
-        assert opts.cg_fused_step is True
         # bench.py's full_ba_options differs from Options() only in
         # workload-shaping fields (thresholds/iteration counts/system
         # routing), never in solver-quality knobs.
@@ -364,10 +360,10 @@ class TestDefaultOptionsAreTheStudiedConfig:
     def test_default_options_solve_equals_explicit_bench_config(self):
         """A default-Options CG solve must be bit-identical to one that
         spells out the bench configuration explicitly."""
-        from bundle_adjustment_solver_tpu.models.problem import (
+        from bundle_adjustment_solver.models.problem import (
             finalized_from_arrays,
         )
-        from bundle_adjustment_solver_tpu.solvers import full_ba
+        from bundle_adjustment_solver.solvers import full_ba
 
         prob = stereo_ba_problem(num_poses=8, num_fixed_poses=1, seed=7)
         fixed = np.zeros(prob.poses_initial.shape[0], bool)
@@ -379,7 +375,7 @@ class TestDefaultOptionsAreTheStudiedConfig:
         )
         opts_default = lm_options(max_iter=5, reduced_system="cg")
         opts_explicit = opts_default.replace(
-            cg_forcing="ew", cg_precond="jacobi", cg_fused_step=True
+            cg_forcing="ew", cg_precond="jacobi"
         )
         st_d = full_ba._solve_jax(problem, shape, opts_default, "cg")
         st_e = full_ba._solve_jax(problem, shape, opts_explicit, "cg")

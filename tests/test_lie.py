@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bundle_adjustment_solver_tpu.ops import lie
+from bundle_adjustment_solver.ops import lie
 
 
 def random_rotvec(rng, n, scale=2.0):

@@ -4,7 +4,7 @@ numpy fallbacks: both paths must agree exactly."""
 import numpy as np
 import pytest
 
-from bundle_adjustment_solver_tpu.utils import native
+from bundle_adjustment_solver.utils import native
 
 
 @pytest.fixture(scope="module")
@@ -76,8 +76,8 @@ def test_partition_landmarks_covers_and_balances(rng):
 
 
 def test_builder_connectivity_warnings():
-    from bundle_adjustment_solver_tpu.models.camera import Camera
-    from bundle_adjustment_solver_tpu.models.problem import (
+    from bundle_adjustment_solver.models.camera import Camera
+    from bundle_adjustment_solver.models.problem import (
         FullBundleAdjustmentSolver,
     )
 
@@ -130,7 +130,7 @@ class TestPointMajorNativePath:
     (csrc ba_pm_fill rc=-4) instead of a separate uniqueness pre-pass."""
 
     def _build_both(self, args, **kw):
-        from bundle_adjustment_solver_tpu.models import layout
+        from bundle_adjustment_solver.models import layout
 
         a = layout.build_point_major(*args, **kw)
         lib, tried = native._LIB, native._TRIED
@@ -276,7 +276,7 @@ class TestDeviceLayoutBuild:
     and take the same fallbacks (duplicate observation, slots bound)."""
 
     def _build_device(self, args, **kw):
-        from bundle_adjustment_solver_tpu.models import layout
+        from bundle_adjustment_solver.models import layout
 
         (obs_pose, obs_point, obs_cam, obs_pixel, points, pose_opt_of,
          point_is_opt) = args
@@ -289,7 +289,7 @@ class TestDeviceLayoutBuild:
         )
 
     def test_device_matches_host_bitexact(self, rng):
-        from bundle_adjustment_solver_tpu.models import layout
+        from bundle_adjustment_solver.models import layout
 
         for seed_extra in range(3):
             (obs_pose, obs_point, obs_cam, obs_pixel, points, pose_opt_of,
@@ -340,7 +340,7 @@ class TestDeviceLayoutBuild:
     def test_layout_cache_refill(self, rng):
         """PMLayoutCache.refill with new pixel/point values must equal a
         fresh device build on those values; pixel-only refill keeps X."""
-        from bundle_adjustment_solver_tpu.models import layout
+        from bundle_adjustment_solver.models import layout
 
         (obs_pose, obs_point, obs_cam, obs_pixel, points, pose_opt_of,
          point_is_opt, n_opt, C) = _random_layout_inputs(rng)

@@ -1,6 +1,6 @@
-"""Differential parity tests: analytic TPU solvers vs the autodiff oracle.
+"""Differential parity tests: analytic solvers vs the autodiff oracle.
 
-This is the TPU build's version of test_compare_ceres_vs_native.cpp: same
+This is the JAX build's version of test_compare_ceres_vs_native.cpp: same
 synthetic data into (a) the native analytic solver and (b) an independent
 autodiff/f64/scipy least-squares oracle; assert final poses and RMSE agree
 (the reference only eyeballs stdout, cpp:228-251 -- here we assert).
@@ -9,15 +9,15 @@ autodiff/f64/scipy least-squares oracle; assert final poses and RMSE agree
 import numpy as np
 import pytest
 
-from bundle_adjustment_solver_tpu.options import (
+from bundle_adjustment_solver.options import (
     ConvergenceHandle,
     IterationHandle,
     Options,
     OutlierHandle,
     SolverType,
 )
-from bundle_adjustment_solver_tpu.solvers import oracle, pose_only
-from bundle_adjustment_solver_tpu.utils.synthetic import (
+from bundle_adjustment_solver.solvers import oracle, pose_only
+from bundle_adjustment_solver.utils.synthetic import (
     mono_pose_only_problem,
     stereo_ba_problem,
 )

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bundle_adjustment_solver_tpu import Options
-from bundle_adjustment_solver_tpu.ops import lie
-from bundle_adjustment_solver_tpu.solvers import pose_only
-from bundle_adjustment_solver_tpu.utils.synthetic import mono_pose_only_problem
+from bundle_adjustment_solver import Options
+from bundle_adjustment_solver.ops import lie
+from bundle_adjustment_solver.solvers import pose_only
+from bundle_adjustment_solver.utils.synthetic import mono_pose_only_problem
 
 
 def _pose_error(T_est, T_true):
@@ -24,7 +24,7 @@ def _pose_error(T_est, T_true):
 
 
 def make_options(max_iter=100, thr=1e-6, huber=1.0, outlier=2.5):
-    from bundle_adjustment_solver_tpu.options import (
+    from bundle_adjustment_solver.options import (
         ConvergenceHandle,
         IterationHandle,
         OutlierHandle,
@@ -138,7 +138,7 @@ class TestPlanar3Dof:
         rng = np.random.default_rng(seed)
         # Base->camera mounting: camera looks along base +x
         # (test_3dof-style robot extrinsic chain).
-        from bundle_adjustment_solver_tpu.utils.synthetic import _roty, _rotz, _T
+        from bundle_adjustment_solver.utils.synthetic import _roty, _rotz, _T
 
         R_bc = _roty(np.pi / 2) @ _rotz(-np.pi / 2)
         base_to_camera = _T(R_bc, np.array([0.1, 0.05, 0.3]))
@@ -539,73 +539,14 @@ class TestChunkedIterTimes:
         )
 
 
-class TestPlanarFusedKernel:
-    """Interpret-mode parity of the fused single-frame planar-3-DoF kernels
-    (ops/pallas/pose_only_gn.py planar variants) against the XLA path --
-    the last reference entry point to gain a fused TPU path
-    (core/pose_only_bundle_adjustment_solver.cpp:401-615, 617-900)."""
-
-    def _problem(self, stereo=False):
-        return TestPlanar3Dof()._make_problem(n=2000, seed=11, stereo=stereo)
-
-    def test_mono_planar_fused_matches_xla(self):
-        p = self._problem()
-        opts = make_options(max_iter=50)
-        args = (
-            p["points"], p["pixels"], p["intrinsics"], p["base_to_camera"],
-            p["T_wlast"], p["T_wc_init"],
-        )
-        pose_x, mask_x, sum_x, ok_x = pose_only.solve_monocular_planar3dof(
-            *args, opts.replace(pallas="never")
-        )
-        pose_p, mask_p, sum_p, ok_p = pose_only.solve_monocular_planar3dof(
-            *args, opts.replace(pallas="interpret")
-        )
-        assert ok_x and ok_p
-        np.testing.assert_allclose(
-            np.asarray(pose_p), np.asarray(pose_x), atol=1e-5
-        )
-        np.testing.assert_array_equal(np.asarray(mask_p), np.asarray(mask_x))
-        rot_err, trans_err = _pose_error(pose_p, p["T_wc_true"])
-        assert rot_err < 1e-3 and trans_err < 1e-3
-
-    def test_stereo_planar_fused_matches_xla(self):
-        p = self._problem(stereo=True)
-        # Drop some right matches to exercise the right-validity plane.
-        pix_r = p["pixels_right"].copy()
-        pix_r[::7] = -1.0
-        opts = make_options(max_iter=50)
-        args = (
-            p["points"], p["pixels"], pix_r, p["intrinsics"],
-            p["intrinsics"], p["base_to_camera"], p["T_lr"], p["T_wlast"],
-            p["T_wc_init"],
-        )
-        out_x = pose_only.solve_stereo_planar3dof(
-            *args, opts.replace(pallas="never")
-        )
-        out_p = pose_only.solve_stereo_planar3dof(
-            *args, opts.replace(pallas="interpret")
-        )
-        pose_x, ml_x, mr_x, _, ok_x = out_x
-        pose_p, ml_p, mr_p, _, ok_p = out_p
-        assert ok_x and ok_p
-        np.testing.assert_allclose(
-            np.asarray(pose_p), np.asarray(pose_x), atol=1e-5
-        )
-        np.testing.assert_array_equal(np.asarray(ml_p), np.asarray(ml_x))
-        np.testing.assert_array_equal(np.asarray(mr_p), np.asarray(mr_x))
-        rot_err, trans_err = _pose_error(pose_p, p["T_wc_true"])
-        assert rot_err < 1e-3 and trans_err < 1e-3
-
-
 class TestCompactingBatched:
     """Straggler compaction driver (solve_stereo_6dof_batched_compacting):
     must reproduce the plain lockstep solve per frame while retiring
-    converged frames between segments (benchmarks/straggler_study.json
+    converged frames between segments (benchmarks/straggler_study.py
     measured 94.7% wasted lockstep passes on a mixed-difficulty batch)."""
 
     def test_matches_lockstep(self):
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.utils.synthetic import (
             batched_stereo_pose_only_problem,
         )
 
@@ -695,7 +636,7 @@ class TestCompactingBatched:
         intr = jnp.asarray([500.0, 500.0, 320.0, 240.0], jnp.float32)
         poses0 = jnp.tile(jnp.eye(4, dtype=jnp.float32), (B, 1, 1))
         opts = make_options(max_iter=10, thr=1e-6).replace(
-            record_history=False, pallas="never"
+            record_history=False
         )
         res = pose_only.solve_monocular_6dof_batched(
             pts, pix, valid, intr, poses0, opts
@@ -706,40 +647,8 @@ class TestCompactingBatched:
             np.asarray(res.pose)[1], np.eye(4), atol=1e-6
         )
 
-    def test_engine_pinned_across_segments(self):
-        """The fused-kernel gate must be resolved ONCE for the whole
-        compacting solve: re-packing shrinks the bucket below the B*P
-        auto-gate threshold, and a mid-solve engine switch would change the
-        f32 accumulation order (and pad-row semantics) between segments."""
-        seen = []
-
-        def solve_fn(arr, o):
-            seen.append(o.pallas)
-            B = arr[1].shape[0]
-            return pose_only.PoseOnlyResult(
-                pose=arr[0],
-                mask_inlier=arr[1],
-                mask_inlier_right=arr[1],
-                success=jnp.ones(B, bool),
-                converged=jnp.zeros(B, bool),  # nobody converges
-                num_iterations=jnp.full(B, 2, jnp.int32),
-                info=jnp.zeros((B, 1, pose_only.INFO_NUM_COLS), jnp.float32),
-                num_info=jnp.zeros(B, jnp.int32),
-                debug_poses=jnp.zeros((B, 1, 4, 4), jnp.float32),
-                num_debug=jnp.zeros(B, jnp.int32),
-            )
-
-        opts = make_options(max_iter=6).replace(record_history=False)
-        pose_only._compacting_solve(
-            (jnp.tile(jnp.eye(4, dtype=jnp.float32), (4, 1, 1)),
-             jnp.ones((4, 8), bool)),
-            pose_slot=0, valid_slot=1, solve_fn=solve_fn, options=opts,
-            check_every=2, min_bucket=2,
-        )
-        assert seen and all(p != "auto" for p in seen), seen
-
     def test_mono_matches_lockstep(self):
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.utils.synthetic import (
             batched_stereo_pose_only_problem,
         )
 
@@ -773,7 +682,7 @@ class TestCompactingBatched:
     def test_planar_matches_lockstep(self, stereo):
         """Planar restart carry (T_wc = T_wl @ T_cb @ res.pose) must make
         the compacted trajectory match lockstep per frame."""
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.utils.synthetic import (
             batched_planar_pose_only_problem,
         )
 
@@ -820,13 +729,13 @@ class TestCompactingBatched:
 
 
 class TestCompactingAutoPolicy:
-    """check_every='auto' (VERDICT r3 weak #3): dispatch-aware boundary
+    """check_every='auto': dispatch-aware boundary
     policy. When the measured dispatch cost dwarfs the kernel work, the
     driver must run ONE lockstep segment and reproduce the lockstep result
     exactly (no segment-boundary err_prev resets)."""
 
     def _problem(self):
-        from bundle_adjustment_solver_tpu.utils.synthetic import (
+        from bundle_adjustment_solver.utils.synthetic import (
             batched_stereo_pose_only_problem,
         )
 
@@ -887,7 +796,7 @@ class TestCompactingAutoPolicy:
         )
 
     def test_one_segment_regime_delegates_once(self, monkeypatch):
-        """The explicit never-lose bound (VERDICT r4 weak #3), expressed
+        """The explicit never-lose bound, expressed
         deterministically: when dispatch dwarfs kernel work, the auto
         policy must DELEGATE to the lockstep solver exactly once and hand
         back its result unchanged -- the structural guarantee behind the

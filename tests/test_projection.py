@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bundle_adjustment_solver_tpu.ops import lie, projection
+from bundle_adjustment_solver.ops import lie, projection
 
 
 def _rand_rotation(rng, n=1):

@@ -11,18 +11,18 @@ import jax
 import numpy as np
 import pytest
 
-from bundle_adjustment_solver_tpu.models.problem import FullBundleAdjustmentSolver
-from bundle_adjustment_solver_tpu.options import (
+from bundle_adjustment_solver.models.problem import FullBundleAdjustmentSolver
+from bundle_adjustment_solver.options import (
     ConvergenceHandle,
     IterationHandle,
     Options,
     SolverType,
 )
-from bundle_adjustment_solver_tpu.parallel.sharded_ba import (
+from bundle_adjustment_solver.parallel.sharded_ba import (
     shard_problem,
     solve_sharded,
 )
-from bundle_adjustment_solver_tpu.utils.synthetic import stereo_ba_problem
+from bundle_adjustment_solver.utils.synthetic import stereo_ba_problem
 
 from tests.test_full_ba import build_solver, pose_errors
 
@@ -35,7 +35,7 @@ def cg_options(max_iter=60, thr=1e-6):
         reduced_system="cg",
         cg_max_iterations=200,
         cg_tolerance=1e-12,
-        # Pinned (round-5 default is 'ew'): these invariance tests isolate
+        # Pinned (the default is 'ew'): these invariance tests isolate
         # SHARDING effects, and adaptive forcing derives its inner
         # tolerance from ||rhs||, whose f32 value varies with the psum
         # reduction order -- near convergence that flips one CG/LM
@@ -112,7 +112,7 @@ class TestShardedSolve:
 
     def test_shard_count_invariance(self, finalized):
         """Same problem on 2 vs 8 shards: same final cost (determinism across
-        shardings, the TPU analogue of race-freedom)."""
+        shardings, the device-mesh analogue of race-freedom)."""
         fin, shape = finalized
         opts = cg_options(max_iter=20)
         s2, sum2, pts2 = solve_sharded(fin, shape, opts, num_shards=2)

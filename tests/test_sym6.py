@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from bundle_adjustment_solver_tpu.ops.sym6 import (
+from bundle_adjustment_solver.ops.sym6 import (
     _TRI6,
     inverse_tri6,
     tri6_damp,

@@ -5,7 +5,7 @@ Exercises the TRUE multi-host code path (BASELINE north star: "10k poses /
 1M landmarks sharded across N>=2 hosts") within a single machine: each
 process owns `--local-devices` virtual CPU devices, `jax.distributed`
 connects them into one global mesh (collectives cross process boundaries
-via Gloo -- the DCN stand-in), and BOTH distributed engines run one LM step
+via Gloo), and BOTH distributed engines run one LM step
 to numerical parity with a process-local single-device solve.
 
 Launch (the test harness `tests/test_multihost.py` does this):
@@ -46,7 +46,7 @@ def main() -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", args.local_devices)
 
-    from bundle_adjustment_solver_tpu.parallel.mesh import (
+    from bundle_adjustment_solver.parallel.mesh import (
         data_mesh,
         initialize_distributed,
         to_global,
@@ -62,14 +62,14 @@ def main() -> int:
 
     import numpy as np
 
-    from bundle_adjustment_solver_tpu.options import (
+    from bundle_adjustment_solver.options import (
         ConvergenceHandle,
         IterationHandle,
         Options,
         SolverType,
     )
-    from bundle_adjustment_solver_tpu.parallel import sharded_ba, sharded_pm
-    from bundle_adjustment_solver_tpu.solvers import full_ba, full_ba_pm
+    from bundle_adjustment_solver.parallel import sharded_ba, sharded_pm
+    from bundle_adjustment_solver.solvers import full_ba, full_ba_pm
     from __graft_entry__ import _tiny_problem
 
     problem, shape = _tiny_problem(num_poses=8, num_points=64, window=3)
@@ -99,7 +99,7 @@ def main() -> int:
         state["poses"], ref_poses, rtol=1e-4, atol=1e-5
     )
 
-    # (b) point-major Pallas engine (interpret mode on CPU).
+    # (b) point-major engine.
     res = full_ba_pm.pm_from_finalized(
         problem, shape, pad_blocks_to=n_global
     )
@@ -114,8 +114,7 @@ def main() -> int:
         mesh,
     )
     out = sharded_pm._solve_sharded_pm_jax(
-        pm, pshape, rig, R_cw0, t_cw0, opt_pose_idx, options,
-        n_global, interpret=True,
+        pm, pshape, rig, R_cw0, t_cw0, opt_pose_idx, options, n_global,
     )
     pm_cost = float(np.asarray(out[7]))
     np.testing.assert_allclose(pm_cost, ref_cost, rtol=1e-3)
@@ -132,12 +131,9 @@ def main() -> int:
             shape.num_opt_poses, options.cg_max_iterations,
             num_shards=n_global,
         ),
-        # Measured cross-process collective cost (VERDICT r4 #4): the only
-        # collectives this environment can physically cross a process
-        # boundary with ride Gloo -- a worst-case anchor for the DCN tier
-        # of the scaling model (real TPU DCN is faster than loopback Gloo
-        # in bandwidth but the per-collective software overhead is the
-        # quantity that dominates the flagship's small psums).
+        # Cross-process psum wall times over loopback Gloo (CPU devices):
+        # a check that collectives cross the process boundary, not a
+        # device measurement.
         "gloo_collective_latency": _time_collectives(mesh, n_global),
     }
     if args.out:
@@ -149,8 +145,8 @@ def main() -> int:
 
 def _time_collectives(mesh, n_global: int) -> list[dict]:
     """Median wall time of a cross-process psum at the sharded PM engine's
-    characteristic payloads (scalar sync, per-CG (Ns, 6) vector, (Ns, 64)
-    assembly panel for the flagship's Ns = 10240 pose rows).
+    characteristic payloads (scalar sync, per-CG (Ns, 6) vector, (Ns, 54)
+    assembly partials for the flagship's Ns = 10240 pose rows).
 
     Every process executes the same program in the same order (collective
     rendezvous); each timed call fetches one replicated scalar, so the
@@ -164,13 +160,13 @@ def _time_collectives(mesh, n_global: int) -> list[dict]:
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
 
-    from bundle_adjustment_solver_tpu.parallel.mesh import DATA_AXIS
+    from bundle_adjustment_solver.parallel.mesh import DATA_AXIS
 
     rows = []
     for name, elems in (
         ("scalar", 1),
         ("cg_vector_Ns_x6", 10_240 * 6),
-        ("panel_Ns_x64", 10_240 * 64),
+        ("partials_Ns_x54", 10_240 * 54),
     ):
         per_dev = max(1, -(-elems // n_global))
         x = jax.device_put(

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Randomized PM-vs-XLA parity stress sweep on the real chip.
+"""Randomized point-major vs observation-table parity sweep.
 
 Generates random problem configurations (sizes, windows, fixed sets,
-observation dropout, loop closures) and asserts that the compiled
-point-major Pallas engine matches the observation-table engine's final
-cost on every one. CI runs the same comparisons in interpret mode on tiny
-shapes; this drives the real Mosaic-compiled kernels across shape variety.
+observation dropout, loop closures) and asserts that the point-major engine
+matches the observation-table engine's final cost on every one. The unit
+tests run the same comparisons on tiny shapes; this sweeps shape variety at
+larger sizes, on whatever device JAX selects (a GPU when present).
 
     python tools/stress_parity.py [num_cases]
 """
@@ -22,18 +22,18 @@ def main() -> int:
     n_cases = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     rng = np.random.default_rng(int(sys.argv[2]) if len(sys.argv) > 2 else 20260816)
 
-    from bundle_adjustment_solver_tpu.models.problem import (
+    from bundle_adjustment_solver.models.problem import (
         finalized_from_arrays,
     )
-    from bundle_adjustment_solver_tpu.options import (
+    from bundle_adjustment_solver.options import (
         ConvergenceHandle,
         IterationHandle,
         Options,
         SolverType,
     )
-    from bundle_adjustment_solver_tpu.solvers import full_ba
-    from bundle_adjustment_solver_tpu.solvers.full_ba_pm import solve_pm
-    from bundle_adjustment_solver_tpu.utils.synthetic import (
+    from bundle_adjustment_solver.solvers import full_ba
+    from bundle_adjustment_solver.solvers.full_ba_pm import solve_pm
+    from bundle_adjustment_solver.utils.synthetic import (
         corridor_ba_problem,
     )
 
@@ -64,7 +64,7 @@ def main() -> int:
         obs_pose[sel] = (obs_pose[sel] + n_poses // 2) % n_poses
         # Rewiring can create duplicate (point, pose, cam) triples; the PM
         # layout correctly refuses those (two residuals vs one plane cell),
-        # so dedupe to keep exercising the Pallas engine.
+        # so dedupe to keep exercising the point-major engine.
         obs_cam_k = prob.obs_camera[keep]
         obs_point_k = prob.obs_point[keep]
         triple = (obs_point_k.astype(np.int64) * (n_poses * 2)
@@ -97,7 +97,7 @@ def main() -> int:
         rel = abs(c_pm - c_ref) / max(abs(c_ref), 1e-6)
         # Heavily-outliered random problems are nonconvex: tiny step
         # perturbations can land the two engines in different basins, both
-        # valid LM outcomes. Accept when costs agree OR the Pallas engine
+        # valid LM outcomes. Accept when costs agree OR the point-major engine
         # found an equal-or-better minimum.
         ok = rel < 2e-2 or c_pm <= c_ref * 1.001
         print(
